@@ -15,7 +15,7 @@ from .constants import VERSION_STR
 
 def usage(prog: str) -> None:
     print(f"""
-DART-TPU (TPU-native rebuild of DART v{VERSION_STR})
+DART-TPU (JAX rebuild of DART v{VERSION_STR})
 
 Usage: {prog} -i Index_Prefix -f <ReadFile_A1 ...> [-f2 <ReadFile_A2 ...>] -o|-bo Output
        {prog} index ref.fa prefix
@@ -38,9 +38,9 @@ Options: -t INT        number of threads [4]
          -v            version
 Extensions:
          --engine E    compute engine: auto | jax | numpy [auto]
-         --mesh SPEC   multi-chip mesh, e.g. data=4 or data=4,index=2
+         --mesh SPEC   multi-device mesh, e.g. data=4 or data=2,index=2
                        (reads data-parallel; index range-sharded for
-                       genomes beyond one chip's HBM)
+                       genomes beyond one device's memory)
          --batch N     reads per device chunk [65536]
          --checkpoint  per-chunk resume cursor (SAM/BAM; per host
                        when distributed)
@@ -51,7 +51,8 @@ Extensions:
          --profile DIR write a jax.profiler trace
          --no-native   pure-Python host pipeline (no C++ toolchain)
          --dist-coordinator HOST:PORT / --dist-nprocs N / --dist-pid I
-                       multi-host run via jax.distributed
+                       multi-process run via jax.distributed (one card
+                       per process)
 """)
 
 

@@ -165,8 +165,8 @@ def write_sad_file(path: str, samples: np.ndarray, intv: int,
                    wide: bool = False) -> None:
     """dart_tpu extension: dense SA samples for the device locate
     kernel. A batched LF-walk's cost is its LONGEST lane (~intv * ln(B)
-    steps over batch B), not the mean, so the TPU wants denser samples
-    than the BWA .sa's every-32 (bwtindex.c:141). int32 payload for
+    steps over batch B), not the mean, so the device wants denser
+    samples than the BWA .sa's every-32 (bwtindex.c:141). int32 payload for
     seq_len < 2^31, int64 ("ESAD" magic) beyond."""
     with open(path, "wb") as f:
         magic = SAD_MAGIC64 if wide else SAD_MAGIC
@@ -227,7 +227,7 @@ def _stage_log(msg: str) -> None:
 def build_index(fasta_path: str, prefix: str, seed: int = 11,
                 sad_intv: int = SAD_INTERVAL) -> None:
     """Build all five BWA-compatible index files for `fasta_path` under
-    `prefix`, plus the .sad dense-sample file (TPU extension)."""
+    `prefix`, plus the .sad dense-sample file (device extension)."""
     _stage_log(f"packing {fasta_path}")
     pg = packer.pack_fasta(fasta_path, seed=seed)
     text = full_text(pg.seq2)
@@ -258,11 +258,10 @@ def build_index(fasta_path: str, prefix: str, seed: int = 11,
     packer.write_amb(prefix + ".amb", pg)
     if sad_intv:
         # wide genomes use a middle interval: every-8 at int64 pair
-        # width would put ~6 GB of samples in HBM on a GRCh38-class
-        # table (10.3 GiB total), while the BWA every-32 doubles the
-        # fast-extension LF-walks' iteration tail (measured: 12% of
-        # flagship lanes exhausted the round-1 cap). Every-16 costs
-        # +1.5 GiB HBM (7.2 GiB total on GRCh38) and halves the walks.
+        # width would put ~6 GB of samples in device memory on a
+        # GRCh38-class table (10.3 GiB total), while the BWA every-32
+        # doubles the fast-extension LF-walks' iteration tail. Every-16
+        # costs +1.5 GiB (7.2 GiB total on GRCh38) and halves the walks.
         wide = seq_len >= 2**31
         intv = max(sad_intv, SA_INTERVAL // 2) if wide else sad_intv
         write_sad_file(prefix + ".sad", sample(intv), intv, wide=wide)

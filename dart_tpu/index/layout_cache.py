@@ -1,6 +1,6 @@
 """Disk-backed cache of derived index layouts.
 
-Rationale (measured on this host class, 2026-08-18): first-touch of
+Rationale (measured on an earlier shared VM, 2026-08-18): first-touch of
 anonymous memory collapses to ~10-50 MB/s whenever a large-RSS process
 exists (hypervisor ballooning), while file-backed page-cache faults
 stay at ~3.5 GB/s — a ~78x gap. At GRCh38 scale the derived layouts

@@ -1,4 +1,4 @@
-"""Index loading: BWA-format files -> in-memory arrays + TPU layouts.
+"""Index loading: BWA-format files -> in-memory arrays + device layouts.
 
 Mirrors the reference loader semantics (/root/reference/src/bwt_index.cpp:
 bwa_idx_load :147, RestoreReferenceInfo :229) but keeps everything as

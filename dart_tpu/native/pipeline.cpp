@@ -2,7 +2,7 @@
 // pairing -> SAM/junction output, operating on whole read chunks.
 //
 // This is the host-side half of the aligner: the FM-index seeding and
-// SA locates run on the TPU (dart_tpu/ops/fm_jax.py); this library
+// SA locates run on the device (dart_tpu/ops/fm_jax.py); this library
 // consumes the resulting per-read seed tables and produces SAM text
 // and the splice-junction map. It reimplements, stage for stage, the
 // semantics of the reference aligner's candidate pipeline

@@ -10,8 +10,8 @@ half-unit values.
 
 Two implementations with identical results:
 - nw_align: native C++ (dart_tpu/native/zoo.cpp), the default
-- nw_align_numpy: antidiagonal-vectorized NumPy; also the dataflow
-  blueprint for the Pallas kernel (ops/nw_pallas.py)
+- nw_align_numpy: antidiagonal-vectorized NumPy; the dataflow a
+  batched device kernel would follow
 """
 
 from __future__ import annotations

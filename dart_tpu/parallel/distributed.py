@@ -8,10 +8,13 @@ it independently with its local chip(s), and the run ends with two
 collectives and a deterministic merge:
 
 - splice-junction tables and summary counters merge across hosts via
-  process_allgather (ICI/DCN, no host-0 bottleneck on the data path);
+  process_allgather (no host-0 bottleneck on the data path);
 - each host writes its own SAM shard; host 0 concatenates the shards
   in shard order, so the final file equals a single-host run over the
   same input ordering per shard.
+
+Each process opens one card of its host, its own (card_ids); a host
+with fewer cards than processes is refused rather than shared.
 
 Plain (non-gz) FASTA/FASTQ shards by byte range; gzip inputs cannot be
 random-accessed, so they shard by round-robin chunk index instead
@@ -137,6 +140,41 @@ class _StridedReader:
 # ---------------------------------------------------------- the run
 
 
+def card_ids(process_id: int, num_processes: int,
+             n_cards: int) -> list[int] | None:
+    """The card ids process `process_id` opens: its own card, one per
+    process. None where the host has no cards (the CPU backend gives
+    every process a device of its own). Raises when the host has fewer
+    cards than processes, because two processes on one card contend for
+    its memory."""
+    if n_cards == 0:
+        return None
+    if n_cards < num_processes:
+        raise RuntimeError(
+            f"{num_processes} processes need one card each; this host has "
+            f"{n_cards}")
+    return [process_id]
+
+
+def host_cards() -> int:
+    """NVIDIA cards on this host, or 0 when none is visible or JAX was
+    asked for another platform (JAX_PLATFORMS without cuda)."""
+    import shutil
+    import subprocess
+
+    plats = os.environ.get("JAX_PLATFORMS", "")
+    if plats and not any(p in plats for p in ("cuda", "gpu")):
+        return 0
+    if shutil.which("nvidia-smi") is None:
+        return 0
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        return 0
+    return sum(1 for line in out.stdout.splitlines()
+               if line.startswith("GPU "))
+
+
 def _allgather_sj(sj_items: list) -> dict:
     """Merge per-host junction tables: allgather fixed-size padded
     arrays (jnp collectives need static shapes), then reduce on host."""
@@ -172,9 +210,10 @@ def run_distributed(cfg, coordinator: str, num_processes: int,
     """Entry point for one host of a multi-host run."""
     import jax
 
-    jax.distributed.initialize(coordinator_address=coordinator,
-                               num_processes=num_processes,
-                               process_id=process_id)
+    jax.distributed.initialize(
+        coordinator_address=coordinator, num_processes=num_processes,
+        process_id=process_id,
+        local_device_ids=card_ids(process_id, num_processes, host_cards()))
     if jax.process_count() != num_processes:
         # some backends register distributed state without actually
         # forming the process group; running on would silently drop
@@ -182,8 +221,7 @@ def run_distributed(cfg, coordinator: str, num_processes: int,
         raise RuntimeError(
             f"jax.distributed formed {jax.process_count()} processes, "
             f"expected {num_processes}; this backend cannot run "
-            "multi-host (use one process per host on a TPU pod, or the "
-            "CPU backend for local testing)")
+            "multi-process")
     from jax.experimental import multihost_utils
 
     from ..aligner import DartAligner

@@ -7,13 +7,11 @@ Two sharding axes (the aligner analogues of dp/tp):
   chips).
 - "index": the merged FM gather table (occ blocks + packed genome +
   SA samples) range-shards by row across chips, for genomes whose
-  index exceeds one chip's HBM. XLA GSPMD partitions every row gather
-  with collectives over ICI — the tensor-parallel analogue — so the
-  SAME fast automaton programs (LUT init, locate/compare modes) run
-  unchanged whether the index is replicated or sharded. (An earlier
-  design hand-wrote a psum row-assembly walk here; the GSPMD
-  formulation replaced it — one code path, no per-step full-row
-  broadcasts.)
+  index exceeds one device's memory. XLA GSPMD partitions every row
+  gather with collectives between devices — the tensor-parallel
+  analogue — so the SAME fast automaton programs (LUT init,
+  locate/compare modes) run unchanged whether the index is replicated
+  or sharded.
 
 With index_shards == 1 the table is replicated and no collective runs
 on the query path. The wide (64-bit) engine accepts the same mesh via
@@ -32,13 +30,19 @@ from ..ops.fm_jax import FMIndexJax
 
 def make_mesh(n_devices: int | None = None, index_shards: int = 1,
               backend: str | None = None) -> Mesh:
+    """A (data, index) mesh over the first n_devices devices of the
+    backend (default: JAX's default backend). Raises when the backend
+    has fewer devices: a mesh never falls back to another backend."""
     devs = jax.devices(backend)
     if n_devices is None:
         n_devices = len(devs)
-    if len(devs) < n_devices and backend is None:
-        # fall back to the (possibly virtualized) CPU backend — e.g. under
-        # --xla_force_host_platform_device_count for multi-chip dry runs
-        devs = jax.devices("cpu")
+    if len(devs) < n_devices:
+        raise ValueError(
+            f"a mesh of {n_devices} devices needs {n_devices} "
+            f"{devs[0].platform} devices; {len(devs)} found")
+    if n_devices % index_shards:
+        raise ValueError(f"{n_devices} devices do not divide into "
+                         f"{index_shards} index shards")
     data = n_devices // index_shards
     grid = np.asarray(devs[:n_devices]).reshape(data, index_shards)
     return Mesh(grid, ("data", "index"))

@@ -4,7 +4,7 @@ Reference: IdentifySeedPairs (AlignmentCandidates.cpp:181-215) — scan
 positions left to right, take the MEM at each, jump past accepted
 seeds (len >= 16 and occurrences <= MaxDupNum), else advance by one.
 
-TPU-first restructuring: the whole scan runs as a batched device
+Device restructuring: the whole scan runs as a batched device
 automaton (one lane per read, ops/fm_jax._seed_scan_kernel) returning a
 compact per-read seed table; a second batched pass locates every
 occurrence of every accepted seed. Engines without the automaton reuse
@@ -82,7 +82,7 @@ def submit_chunk(engine, reads):
     transfer layout and dispatch the first automaton round WITHOUT
     syncing, so the caller can overlap this chunk's device pass with
     host work on the previous chunk (the aligner analogue of the
-    reference's producer/consumer pool, with the relay's dispatch
+    reference's producer/consumer pool, with the device's dispatch
     queue as the buffer). Returns an opaque job for finish_chunk."""
     if hasattr(engine, "seed_submit_packed") and hasattr(reads, "seq_blob"):
         lens = np.diff(reads.seq_off)

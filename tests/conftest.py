@@ -1,5 +1,7 @@
 """Test configuration: force an 8-device virtual CPU mesh so sharding
-tests run anywhere (no TPU pod needed)."""
+tests run anywhere. Tests marked `gpu` take the `gpu` fixture, which
+skips them unless JAX computes on an NVIDIA GPU (chip_smoke.py runs
+them on the card)."""
 
 import os
 
@@ -33,3 +35,17 @@ def toy_index():
     from dart_tpu.index import load_index
 
     return load_index(str(GOLD / "index" / "toy"))
+
+
+@pytest.fixture
+def gpu():
+    """The GPU a `gpu`-marked test computes on. Whether there is one is
+    decided here, when the test runs, never while modules are imported:
+    every pytest-xdist worker must collect the same tests."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs an NVIDIA GPU (JAX computes on {dev.platform}); "
+                    "run `python chip_smoke.py` on the card")
+    return dev

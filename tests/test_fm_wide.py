@@ -6,8 +6,7 @@ the same pair arithmetic serves small and huge genomes). The genuine
 cross-2^31 boundary test — build a >1.07 Gbp synthetic genome so
 fwd+RC exceeds 2^31 text positions, then seed and locate across the
 boundary — is gated behind DART_TPU_BIG=1 (it needs ~40 GB RAM and
-minutes of SA-IS); tools/run_big_wide_check.py drives it and its
-recorded output is committed in tests/golden/big_wide_check.log.
+minutes of SA-IS); tools/run_big_wide_check.py drives it.
 Reference equivalent: the int64 index/search types in
 /root/reference/src/structure.h:29-45 and bwt_search.cpp:127-182.
 """
@@ -209,6 +208,28 @@ def test_wide_data_index_mesh_matches(toy_index, fm):
     np.testing.assert_array_equal(wide.locate(rows), fm.locate(rows))
 
 
+@pytest.mark.gpu
+def test_wide_engine_on_gpu(gpu, toy_index, fm):
+    """The wide engine with its tables on the GPU (LUT init on, as the
+    aligner runs it there): seed tables and locates bit-equal to the
+    NumPy oracle."""
+    from dart_tpu.aligner import _NumpyEngine
+    from dart_tpu.ops.fm_jax_wide import FMIndexJaxWide
+    from dart_tpu.pipeline.seeding import seed_reads_from_all_walks
+
+    wide = FMIndexJaxWide(toy_index, max_dup_num=100, lut_k=4)
+    assert {d.platform for d in wide.blocks.devices()} == {"gpu"}
+    codes, rlens = _sample_reads(toy_index, 64, 100, seed=29)
+    rlens[:4] = [17, 30, 64, 99]
+    codes[9, 20:23] = 4
+    got = wide.seed_reads(codes, rlens)
+    want = seed_reads_from_all_walks(_NumpyEngine(fm, 100), codes, rlens, 100)
+    _assert_seed_tables_match(fm, got, want, len(rlens))
+    rows = np.random.default_rng(13).integers(1, toy_index.seq_len, 500,
+                                              dtype=np.int64)
+    np.testing.assert_array_equal(wide.locate(rows), fm.locate(rows))
+
+
 def test_lean_numpy_occ_matches_full(toy_index):
     """The checkpoint-based lean occ mode (the >2^31 oracle) must equal
     the full-table mode."""
@@ -228,9 +249,8 @@ def test_lean_numpy_occ_matches_full(toy_index):
 def test_big_genome_cross_2e31(tmp_path):
     """The genuine >2^31 boundary check: build a 1.1 Gbp genome
     (fwd+RC text > 2^31), then seed and locate across the boundary,
-    bit-equal to the lean oracle. tools/run_big_wide_check.py is the
-    driver; its recorded output is committed in
-    tests/golden/big_wide_check.log."""
+    bit-equal to the lean oracle, by running
+    tools/run_big_wide_check.py."""
     import subprocess
     import sys
 

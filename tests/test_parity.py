@@ -65,6 +65,21 @@ def test_output_parity_jax_engine(name, toy_index, data_dir, golden_dir, tmp_pat
     assert sj == (golden_dir / f"{name}.junctions.tab").read_text()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_output_parity_gpu(name, gpu, toy_index, data_dir, golden_dir,
+                           tmp_path, capsys):
+    """Every golden config through the jax engine with its tables on the
+    GPU: bit-for-bit the reference's output."""
+    import jax
+
+    assert jax.default_backend() == "gpu"
+    sam, sj = run_config(name, CONFIGS[name], toy_index, data_dir, tmp_path,
+                         engine="jax")
+    assert sam == (golden_dir / f"{name}.sam").read_text()
+    assert sj == (golden_dir / f"{name}.junctions.tab").read_text()
+
+
 @pytest.mark.parametrize("name", ["c3_spliced", "c5_pe"])
 def test_output_parity_python_pipeline(name, toy_index, data_dir, golden_dir,
                                        tmp_path, capsys):

@@ -7,9 +7,8 @@ host scan has no cap (bwt_search.cpp:139-182 runs unbounded), so an
 undersized cap is a parity break: seed_finish would raise
 'seed scan failed to converge' on real telomeric/satellite data.
 
-Regression for the round-2 advisor finding (ADVICE.md: T_rerun was
-Lp*Lp//2, below the worst case whenever rlen == Lp, any multiple
-of 32).
+Regression for an earlier rerun cap of Lp*Lp//2, below the worst
+case whenever rlen == Lp, any multiple of 32.
 """
 
 import numpy as np

@@ -247,8 +247,8 @@ def main():
         for p in (glob.glob(os.path.join(args.workdir, "ref_*.sam"))
                   + [os.path.join(args.workdir, x) for x in
                      ("ref.junctions.tab", "tiny.fq", "tiny.sam",
-                      "ref_timed.sam", "ref_timed.bam", "tpu.sam",
-                      "tpu.bam", "tpu.junctions.tab")]):
+                      "ref_timed.sam", "ref_timed.bam", "dart.sam",
+                      "dart.bam", "dart.junctions.tab")]):
             with contextlib.suppress(FileNotFoundError):
                 os.unlink(p)
         meta_p = os.path.join(args.workdir, "meta.json")

@@ -1,6 +1,6 @@
 """Regenerate ONLY the .sad dense-sample file for an existing index.
 
-The .sad is dart_tpu's TPU extension (builder.write_sad_file): denser
+The .sad is dart_tpu's device extension (builder.write_sad_file): denser
 SA samples than the BWA .sa's every-32, because a batched LF-walk
 costs its LONGEST lane. An index built by the reference bwt_index (or
 stock bwa) has no .sad; this tool derives one without touching the

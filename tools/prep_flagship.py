@@ -14,8 +14,8 @@ build_grch38 --builder ours --force-index): 3409 s — 2.1x faster at
 3.09 Gbp — and all five output files byte-identical to the
 reference's (cmp over 5.4 GB; .sad at wide scale degenerates to the
 same intv-32 sampling as .sa, builder.py:264, so the aligner loses
-nothing either way). Both times are from this tenant-shared host in
-ordinary (not quiet) windows a few hours apart; the measured pairs at
+nothing either way). Both times are from one shared build VM, a few
+hours apart; the measured pairs at
 8/50 Mbp live in each dataset's meta.json build_pair_s. The earlier
 "~8 h SA-IS estimate" in this docstring's round-4 version was wrong:
 measured peak RSS was ~75 GB of the host's 125 GB and the full build
@@ -29,7 +29,7 @@ ready=true last — bench.py refuses the config until then (the
 round-4 flagship bench raced a half-built index; the marker closes
 that race).
 
-Run nice'd in the background (this host has one core):
+Run nice'd in the background:
   DART_TPU_BUILD_LOG=1 nohup nice -n19 python tools/prep_flagship.py &
 """
 

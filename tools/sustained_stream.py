@@ -11,7 +11,6 @@ aligner's emit path; RSS is sampled from /proc/self/status.
 
 Usage: python tools/sustained_stream.py [--repeats 10] [--checkpoint]
 Emits one JSON line at the end; full per-chunk log on stderr.
-Commit the output to tests/golden/sustained_stream.log.
 """
 
 import argparse
